@@ -1,6 +1,6 @@
-"""tpu-hybrid-mpc: a TPU-native hybrid-MPC engine.
+"""A hybrid-MPC engine on an accelerator.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of
+A brand-new JAX/XLA framework with the capabilities of
 ``michchr/pyhybridcontrol`` (MLD modeling + receding-horizon MIQP control,
 per SURVEY.md; the reference mount is empty so parity is specified against
 SURVEY.md [LIT]/[BASELINE] and the in-repo exact oracle).
@@ -9,8 +9,8 @@ Layer map (bottom → top, SURVEY.md §1):
 
     L0  utils/      StructDict pytree, matrix block assembly, caching
     L1  mld/        MldInfo, MldModel (Bemporad–Morari MLD form), PWA→MLD
-    L2a ops/        horizon condensation, batched ADMM QP (jnp + Pallas)
-    L2b solver/     TPU-resident branch-and-bound MIQP, exact oracles
+    L2a ops/        horizon condensation, batched ADMM QP
+    L2b solver/     device-resident branch-and-bound MIQP, exact oracles
     L3  loop/       receding-horizon closed-loop engine (scan/vmap)
     L3  control/    MpcController (weights, soft constraints, feedback)
     L3  agents/     Agent / MpcAgent / micro-grid coordination

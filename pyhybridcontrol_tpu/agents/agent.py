@@ -2,7 +2,7 @@
 simulation model + control model + controller; the receding-horizon loop
 is  measure x_k → feedback → apply u_k → step dynamics → log.
 
-Two execution modes, per the TPU-first design:
+Two execution modes, per the device-first design:
 
   * interactive host loop (``sim_step`` / ``run``) — reference-style
     step-at-a-time control with pandas history logging, for studies that

@@ -9,7 +9,7 @@ congestion price λ added to its energy cost:
     agent i:  min  J_i(V_i) + Σ_k λ_k · P_i · u_{i,k}
     master:   λ_k ← [λ_k + α (Σ_i P_i u*_{i,k} − P_max)]₊
 
-TPU shape: all agents share one model structure, so each dual round is a
+Device shape: all agents share one model structure, so each dual round is a
 single ``vmap``-batched B&B over the agent axis — M agents cost one
 batched solve, and the agent axis shards over a mesh (`scen`) for
 multi-chip fleets. The master update is a tiny reduction (the ICI

@@ -3,7 +3,7 @@
 owns evolution matrices + weights + decision variables, assembles the
 problem, ``feedback(x0, …) → solve MIQP → first input``).
 
-TPU-native redesign: instead of CVXPY variables + a Gurobi call, ``build``
+Device-native redesign: instead of CVXPY variables + a Gurobi call, ``build``
 condenses once (host fp64 → DeviceQP) and compiles a jitted device
 feedback function; ``feedback`` is then a single device-program call.
 Derived data is version-cached: rebuilds happen only when the horizon,
@@ -378,9 +378,8 @@ class MpcController:
         "vmap" (jit(vmap(feedback)) — every solver/tree combination) or
         "pooled" (solver="bnb", no scenario tree, single-device —
         solver/bnb_pooled.py: all instances' B&B nodes in one global
-        pool, waves sized to the Pallas kernel grain; measured 3.5× the
-        vmapped engine on-chip at B=1024 because instances neither
-        lock-step nor starve the batch lanes).
+        pool, so instances neither lock-step nor relax in tiny
+        per-instance batches).
         ``pooled_wave``/``pool_slots`` size the pooled
         search; the per-instance node budget matches bnb_spec
         (max_waves rescales to the global wave size).
@@ -515,11 +514,6 @@ class MpcController:
         # pooled driver sizes its pool from pool_slots)
         P = pool_slots or 32 * B
         gwave = min(pooled_wave, P)
-        if gwave >= 128:
-            # snap to the Pallas kernel's 128-lane batch grain so wave
-            # relaxation/probe batches ride the kernel on TPU
-            # (ops/pallas_admm.py admm_solve_auto)
-            gwave -= gwave % 128
         # equal per-instance node budget at the global wave size
         gw = max(1, (B * spec.max_waves * spec.wave_size
                      + gwave - 1) // gwave)

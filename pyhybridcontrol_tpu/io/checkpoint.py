@@ -2,14 +2,17 @@
 long scenario studies and multi-host runs resume after failure.
 
 The reference has no checkpointing (re-runs from scratch); here any
-pytree (BnbState, ClosedLoopResult, custom study state) serializes via
-flax's msgpack with an atomic write-rename, plus a step counter and
-user metadata. Multi-host: each process writes its own shard file
-(``…-procNNN``) — restore with the same process count.
+pytree (BnbState, ClosedLoopResult, custom study state) is written as
+its flattened leaves in one numpy ``.npz`` blob behind a JSON header
+(step counter and user metadata), with an atomic write-rename. The blob
+is read back with ``allow_pickle=False``, so loading runs no code.
+Multi-host: each process writes its own shard file (``…-procNNN``) —
+restore with the same process count.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import tempfile
@@ -17,32 +20,36 @@ from typing import Any, Optional, Tuple
 
 import jax
 import numpy as np
-from flax import serialization
+
+
+def _shard_path(path: str, process_index: Optional[int]) -> str:
+    if process_index is None and jax.process_count() > 1:
+        process_index = jax.process_index()
+    if process_index is not None:
+        path = f"{path}-proc{process_index:03d}"
+    return path
 
 
 def save_checkpoint(path: str, state: Any, step: int = 0,
                     metadata: Optional[dict] = None,
                     process_index: Optional[int] = None) -> str:
     """Atomically serialize ``state`` (any pytree) to ``path``."""
-    if process_index is None and jax.process_count() > 1:
-        process_index = jax.process_index()
-    if process_index is not None:
-        path = f"{path}-proc{process_index:03d}"
-    # flattened-leaves wire format: works for EVERY pytree (dicts,
-    # StructDicts, register_dataclass results like ClosedLoopResult /
-    # BnbState) — flax's state-dict serializer alone rejects custom
-    # dataclass containers it has no handler for
+    path = _shard_path(path, process_index)
+    # flattened leaves: works for EVERY pytree (dicts, StructDicts,
+    # register_dataclass results like ClosedLoopResult / BnbState)
     leaves = jax.tree_util.tree_leaves(state)
-    blob = serialization.to_bytes(
-        {f"leaf_{i:05d}": np.asarray(l) for i, l in enumerate(leaves)})
+    buf = io.BytesIO()
+    np.savez(buf, **{f"leaf_{i:05d}": np.asarray(l)
+                     for i, l in enumerate(leaves)})
     meta = json.dumps({"step": int(step), "meta": metadata or {}}).encode()
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(path)))
+    out_dir = os.path.dirname(os.path.abspath(path))
+    os.makedirs(out_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=out_dir)
     try:
         with os.fdopen(fd, "wb") as fp:
             fp.write(len(meta).to_bytes(8, "little"))
             fp.write(meta)
-            fp.write(blob)
+            fp.write(buf.getvalue())
         os.replace(tmp, path)
     except BaseException:
         if os.path.exists(tmp):
@@ -57,16 +64,13 @@ def load_checkpoint(path: str, target: Any = None,
     """Restore (state, step, metadata); ``target`` supplies the pytree
     structure (e.g. a freshly-initialized state). With ``target=None``
     the raw leaf list is returned (inspection mode)."""
-    if process_index is None and jax.process_count() > 1:
-        process_index = jax.process_index()
-    if process_index is not None:
-        path = f"{path}-proc{process_index:03d}"
+    path = _shard_path(path, process_index)
     with open(path, "rb") as fp:
         mlen = int.from_bytes(fp.read(8), "little")
         meta = json.loads(fp.read(mlen).decode())
         blob = fp.read()
-    raw = serialization.msgpack_restore(blob)
-    leaves = [raw[k] for k in sorted(raw)]
+    with np.load(io.BytesIO(blob), allow_pickle=False) as raw:
+        leaves = [raw[k] for k in sorted(raw.files)]
     if target is None:
         state = leaves
     else:

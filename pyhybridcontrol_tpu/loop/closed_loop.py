@@ -53,7 +53,7 @@ def make_mpc_step(model: MldModel, qp: DeviceQP, admm: BoxQP,
     ``step(x, W, price_seq, u_prev[, prev]) ->
     (v_seq (N,nv), obj, found, nodes, V)``.
 
-    ``method``: "bnb" (TPU B&B) or "enumerate" (exact, 2^nb batched QPs).
+    ``method``: "bnb" (device B&B) or "enumerate" (exact, 2^nb batched QPs).
     ``repair``: optional (RepairSpec, layout) — seeds the B&B incumbent
     with the greedy rollout-repair heuristic (solver/repair.py).
     ``shift_warm``: receding-horizon warm start (SURVEY.md §3.3) — when
@@ -163,7 +163,7 @@ def make_mpc_step_batch(model: MldModel, qp: DeviceQP, admm: BoxQP,
     """Batched control step over B scenarios through the POOLED
     multi-instance B&B (solver/bnb_pooled.py) — the closed-loop form of
     the config-4 engine: per step, ALL B instances' nodes share one
-    global pool and every wave is one kernel-grain batch, instead of
+    global pool and every wave is one batched solve, instead of
     B lock-stepped per-instance searches under vmap.
 
     ``step(xs (B,nx), Ws (B,N,nω)|None, price_seq (N,nv)|None,

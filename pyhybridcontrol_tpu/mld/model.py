@@ -4,7 +4,7 @@ Functional replica of the reference's ``MldModel`` (SURVEY.md §2a, §3.1):
 holds the 18 Bemporad–Morari matrices, validates them against an MldInfo,
 and provides the one-step dynamics / output / constraint-residual maps.
 
-TPU-first design differences from the reference:
+Design differences from the reference:
   * The matrix bundle is a JAX pytree (StructDict of jnp arrays), so an
     MldModel flows through jit/vmap/scan directly — ``step`` is traced
     once and fused by XLA; batched models are just stacked leaves.
@@ -100,28 +100,28 @@ class MldModel:
         None (treated as zero). Shapes: x (..., nx) → (..., nx).
         """
         m = self.mats
-        xp = m.A @ _col(x) + m.b5
+        xp = _mm(m.A, _col(x)) + m.b5
         for mat, val in ((m.B1, u), (m.B2, delta), (m.B3, z), (m.B4, omega)):
             if val is not None and mat.shape[1] > 0:
-                xp = xp + mat @ _col(val)
+                xp = xp + _mm(mat, _col(val))
         return _like(xp, x)
 
     def output(self, x, u=None, delta=None, z=None, omega=None):
         """y = C x + D1 u + D2 δ + D3 z + D4 ω + d5."""
         m = self.mats
-        y = m.C @ _col(x) + m.d5
+        y = _mm(m.C, _col(x)) + m.d5
         for mat, val in ((m.D1, u), (m.D2, delta), (m.D3, z), (m.D4, omega)):
             if val is not None and mat.shape[1] > 0:
-                y = y + mat @ _col(val)
+                y = y + _mm(mat, _col(val))
         return y[..., :, 0]
 
     def constraint_residual(self, x, u=None, delta=None, z=None, omega=None):
         """E x + F1 u + F2 δ + F3 z + F4 ω − f5 (≤ 0 when feasible)."""
         m = self.mats
-        r = m.E @ _col(x) - m.f5
+        r = _mm(m.E, _col(x)) - m.f5
         for mat, val in ((m.F1, u), (m.F2, delta), (m.F3, z), (m.F4, omega)):
             if val is not None and mat.shape[1] > 0:
-                r = r + mat @ _col(val)
+                r = r + _mm(mat, _col(val))
         return r[..., :, 0]
 
     def step_v(self, x, v, omega=None):
@@ -152,6 +152,12 @@ class MldModel:
 
 def _col(a):
     return a[..., :, None]
+
+
+def _mm(a, b):
+    # true fp32: a GPU may otherwise run float32 products in TF32, and the
+    # closed loops integrate these steps over time
+    return jnp.matmul(a, b, precision="highest")
 
 
 def _like(col, x):

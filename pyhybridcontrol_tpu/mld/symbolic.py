@@ -1,7 +1,7 @@
 """Parameterized MLD templates (reference capability: sympy-symbolic MLD
 matrices materialized from a parameter struct, SURVEY.md §2a/§3.1).
 
-TPU-first redesign: instead of sympy expression matrices + lambdify, a
+Device-first redesign: instead of sympy expression matrices + lambdify, a
 template is a plain Python builder ``params → {matrix_name: array}``
 evaluated at materialization time (host, float64). This keeps the
 materialization step traceable-free (construction-time only, like the

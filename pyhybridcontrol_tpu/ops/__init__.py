@@ -5,11 +5,6 @@ from pyhybridcontrol_tpu.ops.admm import (
     admm_solve_batch,
     prepare_admm,
 )
-from pyhybridcontrol_tpu.ops.pallas_admm import (
-    admm_solve_auto,
-    admm_solve_pallas,
-    prepare_pallas,
-)
 
 __all__ = [
     "CondensedMpc",
@@ -17,9 +12,6 @@ __all__ = [
     "MpcWeights",
     "BoxQP",
     "admm_solve",
-    "admm_solve_auto",
     "admm_solve_batch",
-    "admm_solve_pallas",
     "prepare_admm",
-    "prepare_pallas",
 ]

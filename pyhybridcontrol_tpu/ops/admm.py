@@ -16,8 +16,8 @@ Each ADMM iteration is then three dense matmuls:
     z̃ ← A x̃                              (B,m̄) = (B,n)(n,m̄)
     z  ← Π_[l,u](α z̃ + (1−α) z + y/ρ);   y ← y + ρ(α z̃ + (1−α) z_old − z)
 
-which batch over B&B nodes / scenarios as MXU matmuls — this is why the
-TPU form of branch-and-bound is wave-parallel (SURVEY.md §2b).
+which batch over B&B nodes / scenarios as dense matmuls — this is why
+the device form of branch-and-bound is wave-parallel (SURVEY.md §2b).
 
 Fixed iteration count (lock-step, no host sync, XLA-static); final primal/
 dual residuals are returned so callers can detect non-converged or
@@ -67,29 +67,22 @@ class BoxQP:
     sigma: float = dataclasses.field(metadata=dict(static=True))
     alpha: float = dataclasses.field(metadata=dict(static=True))
     m_ineq: int = dataclasses.field(metadata=dict(static=True))  # rows of G
-    # TPU matmul precision: fp32 data + DEFAULT precision means bf16 MXU
-    # passes — fatal for ADMM convergence. "highest" = fp32-equivalent
-    # (6-pass bf16 decomposition); "high" = 3-pass, usually sufficient.
+    # Matmul precision. On a GPU, float32 products at DEFAULT precision
+    # may run in TF32 on the tensor cores (about three decimal digits),
+    # which stalls ADMM convergence; "highest" keeps true fp32. "high"
+    # is TF32 on the GPU.
     precision: str = dataclasses.field(
         default="highest", metadata=dict(static=True))
-    # Pallas dispatch policy, FIXED at prepare time (round-2 read the
-    # PHC_PALLAS_FORCE env at trace time, so two traces of one function
-    # under different env values silently produced different programs):
-    # "" auto (kernel on TPU for lane-aligned batches), "off" never,
-    # "interpret" kernel-in-interpret-mode on non-TPU backends (CPU
-    # testability of the kernel-in-while_loop path).
-    pallas_mode: str = dataclasses.field(
-        default="", metadata=dict(static=True))
     # Certificate arithmetic: True → the Falk dual bound and the
     # primal-infeasibility certificate evaluate their REDUCTIONS with
-    # double-float compensated sums (utils/dd.py — fp64-grade on a TPU
-    # that has no fp64). The matmuls stay fp32 ``precision`` (CLAUDE.md
+    # double-float compensated sums (utils/dd.py — fp64-grade without
+    # fp64 arithmetic). The matmuls stay fp32 ``precision`` (CLAUDE.md
     # mandates "highest" for solver dots); it is the tangent/support/gap
     # sums whose terms cancel (1e2-scale terms certifying 1e-3-scale
     # bounds) that fp32 summation gets wrong — measured shipping
-    # 3.7%-worse incumbents when certs drove strong-branching fixing on
-    # chip (docs/PERFORMANCE.md round-4 negative result; VERDICT r4
-    # item 2). Off by default: dd costs ~10 elementwise ops per term and
+    # 3.7%-worse incumbents when certs drove strong-branching fixing
+    # (PERF.md, hardware-independent findings). Off by default: dd
+    # costs ~10 elementwise ops per term and
     # perturbs golden node counts; certificate-driven features
     # (BnbSpec.sb_fix) should run on dd_cert preps.
     dd_cert: bool = dataclasses.field(
@@ -136,7 +129,6 @@ def prepare_admm(G: np.ndarray, H: np.ndarray, *, rho: float = 1.0,
                  boost_rows=None, boost_scale: float = 30.0,
                  eq_rows=None,
                  dtype=jnp.float32, precision: str = "highest",
-                 pallas_mode: Optional[str] = None,
                  dd_cert: bool = False) -> BoxQP:
     """Host-side (float64) preparation: Ruiz equilibration + K⁻¹.
 
@@ -145,20 +137,8 @@ def prepare_admm(G: np.ndarray, H: np.ndarray, *, rho: float = 1.0,
     equality rows the same way). ``eq_rows``: constraint rows that are
     true equalities (e.g. scenario-consensus selector rows) — same
     rho_eq_scale boost.
-
-    ``pallas_mode``: kernel-dispatch policy baked into the spec (see
-    BoxQP.pallas_mode); None → read PHC_PALLAS_FORCE from the
-    environment ONCE, here, at prepare time. Every program traced from
-    this spec then agrees on the dispatch, whatever the env does later.
     """
-    import os
-
     from pyhybridcontrol_tpu.ops.scaling import ruiz_equilibrate
-
-    if pallas_mode is None:
-        pallas_mode = os.environ.get("PHC_PALLAS_FORCE", "")
-    if pallas_mode not in ("", "off", "interpret"):
-        raise ValueError(f"unknown pallas_mode {pallas_mode!r}")
 
     G = np.asarray(G, dtype=np.float64)
     H = np.asarray(H, dtype=np.float64)
@@ -189,7 +169,7 @@ def prepare_admm(G: np.ndarray, H: np.ndarray, *, rho: float = 1.0,
         cost_scale=jnp.asarray(c, dtype),
         rho_vec=jnp.asarray(rho_vec, dtype),
         rho=float(rho), sigma=float(sigma), alpha=float(alpha), m_ineq=m,
-        precision=precision, pallas_mode=pallas_mode, dd_cert=dd_cert,
+        precision=precision, dd_cert=dd_cert,
     )
 
 
@@ -538,7 +518,7 @@ def admm_solve_mixed(spec: BoxQP, q, h, lb, ub, iters: int = 100,
                      low_frac: float = 0.8, low_precision: str = "high",
                      warm=None) -> AdmmResult:
     """Two-phase precision schedule: the first ``low_frac`` of the
-    iterations run at ``low_precision`` matmuls (TPU 3-pass bf16), the
+    iterations run at ``low_precision`` matmuls (TF32 on the GPU), the
     tail at the spec's full precision, warm-chained. Measured ~+20%
     solves/s at N=20 for ~1e-3-relative objective noise — opt-in for
     throughput-bound scenario studies; keep full precision for B&B

@@ -2,7 +2,7 @@
 
 Functional replica of the reference's ``MpcEvoMatrices`` + objective builder
 + soft constraints + move blocking (SURVEY.md §2a, §3.2), redesigned for
-TPU execution:
+device execution:
 
   * Built ONCE per (model, N, weights) on the host in float64 (numerics:
     big-M rows make condensed QPs ill-conditioned; fp64 assembly keeps the
@@ -146,9 +146,10 @@ class DeviceQP:
         over leading batch dims of x0 / W.
 
         precision="highest" is NOT optional: under vmap the mat-vecs
-        become mat-mats that XLA tiles onto the MXU in bf16, and a
+        become mat-mats that may run at reduced precision (bf16 passes
+        on the earlier accelerator, TF32 on a GPU), and a
         ~1e-3-relative error in h moves MIQP leaf optima by ~0.5%
-        (measured on-chip: batched-assemble leaf −42.929 vs exact
+        (measured there: batched-assemble leaf −42.929 vs exact
         −42.687 on the switched double integrator). The unbatched form
         lowers to an exact fp32 reduction, which masked this on every
         single-instance test."""
@@ -184,7 +185,7 @@ class CondensedMpc:
         c = CondensedMpc(model, N, weights)
         c = c.with_move_blocking(groups)      # optional, before soft
         c = c.with_soft_constraints(rows, lin_pen, quad_pen)  # optional
-        qp = c.device_qp()                    # fp32 pytree for TPU
+        qp = c.device_qp()                    # fp32 pytree for the device
     """
 
     def __init__(self, model: MldModel, N: int,

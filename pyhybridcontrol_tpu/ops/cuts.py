@@ -7,9 +7,9 @@ Why. Hull per-stage PWA encodings are locally ideal, but the
 CROSS-STAGE relaxation still sits below the integer hull: the config-2
 root relaxation is 57.645 against an optimum of ≈61.0 — a structural
 5.5% that every certificate must otherwise earn by branching (9,675
-nodes / 283 ms for a 2% certificate on chip, round 4). Cuts raise the
+nodes for a 2% certificate). Cuts raise the
 ROOT bound node-independently, generated once at prepare time in exact
-fp64 on the host, so there is no chip-arithmetic risk anywhere in their
+fp64 on the host, so there is no device-arithmetic risk anywhere in their
 validity (contrast the round-4 strong-branching negative result).
 
 Method. Split (lift-and-project) cuts from the cut-generating LP

@@ -15,7 +15,7 @@ row couples at most (ξ_{k−1}, ξ_k): AᵀA — and hence the ADMM KKT matrix
 K = P + σI + Aᵀdiag(ρ)A — is block-tridiagonal. K is factored ONCE on
 the host (fp64 block LU, the Riccati-like sweep); each ADMM iteration
 applies A/Aᵀ stage-locally (batched small matmuls over (B, N) on the
-MXU) and solves Kξ = t with two length-N ``lax.scan`` sweeps carrying a
+device) and solves Kξ = t with two length-N ``lax.scan`` sweeps carrying a
 (B, b) block. Memory and FLOPs are O(N·b²) per solve instead of the
 condensed path's O(N²·nv²) — the horizon is the sequence axis and this
 is its O(N) attention-free treatment.
@@ -692,7 +692,7 @@ def block_lu_device(K_diag, K_off):
     stages carrying U_{k−1}. Use when K must be (re)factored inside a
     jitted program — per-node ρ schedules, on-device re-preparation at
     long N where a host round-trip per refactor would dominate. fp32 on
-    TPU (the host path stays fp64 for the ill-conditioned big-M case —
+    the device (the host path stays fp64 for the ill-conditioned big-M case —
     see CLAUDE.md numerics rules); parity is tested against the host
     factors. Returns (L, Uinv, C) shaped like ``StagewiseQP.L/Uinv/C``."""
     N, b, _ = K_diag.shape

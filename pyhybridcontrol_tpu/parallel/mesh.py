@@ -1,13 +1,13 @@
 """Mesh / sharding helpers (SURVEY.md §2b ``dist/collective``).
 
-The framework's parallel axes over a TPU mesh:
+The framework's parallel axes over a device mesh:
 
   * ``scen`` — data parallelism over independent MIQP instances /
     scenario rollouts (BASELINE configs 4–5). Pure sharding: XLA inserts
     no collectives except at reductions the caller asks for.
   * ``pool`` — one MIQP's B&B node pool sharded across devices;
-    per-wave incumbent all-reduce + child exchange ride ICI
-    (sharded_bnb.py).
+    per-wave incumbent all-reduce + child exchange ride the interconnect
+    (NVLink between the cards of one host; sharded_bnb.py).
 
 Multi-host: the same meshes span hosts via ``jax.distributed.initialize``
 (standard JAX SPMD); nothing here is host-count-aware by design.

@@ -35,7 +35,8 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true",
                     help="continue from the --checkpoint snapshot")
     ap.add_argument("--cpu", action="store_true",
-                    help="force CPU backend (8 virtual devices)")
+                    help="run on the CPU (8 virtual devices); without it "
+                         "the run refuses a CPU-only JAX")
     args = ap.parse_args(argv)
 
     if args.cpu:
@@ -50,6 +51,12 @@ def main(argv=None):
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+
+    from pyhybridcontrol_tpu.utils.runtime import (
+        enable_compile_cache, require_accelerator)
+
+    require_accelerator(allow_cpu=args.cpu)
+    enable_compile_cache()
 
     import jax.numpy as jnp
     import numpy as np

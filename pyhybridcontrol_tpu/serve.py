@@ -6,10 +6,8 @@ stdin mode (default): one JSON request per line on stdin, one JSON
 response per line on stdout — the minimal production-embedding surface.
 The controller itself is a single resident device program, so
 per-request latency after warmup is one feedback solve — the measured
-number is the config-1 ``ms_per_control_step`` row of
-``BENCH_DETAILS.json`` (regenerated every bench run; do not hard-code
-it here — round-2 shipped a stale "~1 ms" from a harness later found
-broken).
+number is the config-1 ``ms_per_control_step`` cell of the benchmark
+(do not hard-code it here).
 
 TCP mode (``--tcp PORT``; the SURVEY.md §5 serving surface hardened):
 a line-delimited-JSON socket front serving many concurrent clients from
@@ -20,7 +18,7 @@ number of distinct compiled batch shapes is log-bounded), then the
 responses are demultiplexed back per client. ``--coalesce-window MS``
 holds the batch open that long after the first request (0 = drain-only:
 batch whatever is already queued). Device work stays on one thread —
-the TPU is a single-program resource — so coalescing is what turns
+one process owns the card — so coalescing is what turns
 request concurrency into device throughput (config-4 economics:
 the pooled batch engine measures ~3.5x the per-instance form).
 
@@ -61,6 +59,7 @@ import time
 
 
 def _build_controller(args):
+    import jax
     import jax.numpy as jnp
 
     from pyhybridcontrol_tpu.configs import get_config
@@ -76,8 +75,10 @@ def _build_controller(args):
     ctrl.build()
     # warmup compile so the first real request is fast
     ctrl.feedback(jnp.zeros(model.info.nx))
+    dev = jax.devices()[0]
     ready = {"ready": True, "config": cfg.name, "nx": model.info.nx,
-             "nu": model.info.nu, "N": cfg.N}
+             "nu": model.info.nu, "N": cfg.N, "platform": dev.platform,
+             "device_kind": dev.device_kind}
     return ctrl, ready
 
 
@@ -425,7 +426,9 @@ def main(argv=None):
     ap.add_argument("--config", required=True)
     ap.add_argument("--solver", default="bnb",
                     choices=["bnb", "enumerate", "stagewise"])
-    ap.add_argument("--cpu", action="store_true")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU; without it the server refuses "
+                         "a CPU-only JAX")
     ap.add_argument("--tcp", type=int, default=None, metavar="PORT",
                     help="serve line-delimited JSON on a TCP socket "
                          "(0 = ephemeral; the chosen port is printed in "
@@ -440,10 +443,15 @@ def main(argv=None):
                     help="coalescing batch cap (TCP mode)")
     args = ap.parse_args(argv)
 
-    if args.cpu:
-        import jax
+    import jax
 
+    from pyhybridcontrol_tpu.utils.runtime import (
+        enable_compile_cache, require_accelerator)
+
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    require_accelerator(allow_cpu=args.cpu)
+    enable_compile_cache()
     ctrl, ready = _build_controller(args)
     if args.tcp is None:
         _stdin_loop(ctrl, ready)

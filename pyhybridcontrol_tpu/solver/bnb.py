@@ -1,4 +1,4 @@
-"""TPU-resident branch-and-bound MIQP engine (SURVEY.md §2b ``solver/bnb``
+"""Device-resident branch-and-bound MIQP engine (SURVEY.md §2b ``solver/bnb``
 — replaces Gurobi's B&B core, redesigned for XLA's static-shape model).
 
 Design: a *fixed-capacity node pool* with an active mask instead of a
@@ -6,7 +6,7 @@ dynamic frontier (SURVEY.md §7 "hard parts"). Each **wave** (one iteration
 of a jitted ``lax.while_loop``):
 
   1. select the W best-bound active nodes (``lax.top_k`` — best-first),
-  2. solve their QP relaxations as ONE batched ADMM call (MXU matmuls),
+  2. solve their QP relaxations as ONE batched ADMM call (dense matmuls),
   3. solve W *probe* QPs — binaries fixed to the rounded relaxation —
      which is the primal dive heuristic: every feasible probe is a true
      MIQP upper bound, so the incumbent drops early and pruning bites,
@@ -89,55 +89,20 @@ class CondensedBackend:
         return self.admm.m_total
 
     def solve(self, f, h, lb, ub, iters, warm=None):
-        from pyhybridcontrol_tpu.ops.pallas_admm import admm_solve_auto
-
-        # admm_solve_auto: the Pallas kernel when the wave batch tiles
-        # the 128-lane grain on TPU AND the prepared spec is concrete
-        # (closed over, not a jit argument — see solve_miqp_bnb); the
-        # XLA path otherwise. Same scaled frame and AdmmResult contract,
-        # so warm starts and certified bounds are unchanged.
-        return admm_solve_auto(self.admm, f, h, lb, ub, iters=iters,
-                               warm=warm)
-
-    def solve_cert(self, f, h, lb, ub, iters, warm=None):
-        """Certificate-grade batched solve: ALWAYS the XLA path, never
-        the kernel — the Pallas kernel evaluates its primal-
-        infeasibility certificate with plain fp32 in-kernel sums,
-        while the XLA path honors the spec's ``dd_cert`` policy
-        (ops/admm.py: double-float compensated support/gap reductions).
-        Used for root strong branching, whose fixing/bound-lift arms
-        are only as sound as the certificates' arithmetic (the round-4
-        chip negative result — docs/PERFORMANCE.md)."""
         from pyhybridcontrol_tpu.ops.admm import admm_solve
 
-        return admm_solve(self.admm, f, h, lb, ub, iters=iters,
-                          warm=warm)
+        return admm_solve(self.admm, f, h, lb, ub, iters=iters, warm=warm)
 
     def solve_probe(self, f, h, lb, ub, iters, warm=None):
-        from pyhybridcontrol_tpu.ops.pallas_admm import admm_solve_auto
+        from pyhybridcontrol_tpu.ops.admm import admm_solve
 
         if self.admm_probe is None:
-            return admm_solve_auto(self.admm, f, h, lb, ub, iters=iters,
-                                   warm=warm)
-        k = iters // 2
-        r1 = admm_solve_auto(self.admm_probe, f, h, lb, ub, iters=k,
-                             warm=warm)
-        return admm_solve_auto(self.admm, f, h, lb, ub, iters=iters - k,
-                               warm=(r1.x, r1.z, r1.y))
-
-    def solve_wave(self, f, h, lb, ub, iters, probe_iters, warm=None):
-        """Fused relaxation + dive probe (ops/pallas_admm.py
-        ``admm_wave_auto``): ONE kernel program on TPU — the relax
-        iterates warm-start the probe in VMEM, removing two kernel
-        launches and their iterate HBM round-trips per wave; the exact
-        sequential composition on the XLA path. Returns
-        ``(relax, probe, lb_probe, ub_probe)``."""
-        from pyhybridcontrol_tpu.ops.pallas_admm import admm_wave_auto
-
-        return admm_wave_auto(self.admm, self.admm_probe,
-                              self.binary_idx, f, h, lb, ub,
-                              iters=iters, probe_iters=probe_iters,
+            return admm_solve(self.admm, f, h, lb, ub, iters=iters,
                               warm=warm)
+        k = iters // 2
+        r1 = admm_solve(self.admm_probe, f, h, lb, ub, iters=k, warm=warm)
+        return admm_solve(self.admm, f, h, lb, ub, iters=iters - k,
+                          warm=(r1.x, r1.z, r1.y))
 
     def node_bound(self, res, f, h, lb, ub):
         from pyhybridcontrol_tpu.ops.admm import admm_dual_bound
@@ -188,7 +153,7 @@ class BnbSpec:
     # (x, z, y) through the node pool — fewer iterations to re-converge
     probe_iters: int = 0         # iterations for dive probes / leaf
     # evaluation; 0 → same as qp_iters. Degenerate big-M leaves need
-    # several thousand iterations to certify (see docs/PERFORMANCE.md).
+    # several thousand iterations to certify (see PERF.md).
     rel_gap: float = 0.0         # relative MIPGap termination (the
     # reference's Gurobi MIPGap option, SURVEY.md §2a): stop once
     # (incumbent − best open bound) ≤ rel_gap·max(1, |incumbent|).
@@ -199,7 +164,7 @@ class BnbSpec:
     # (periodic retry; a success resets the counter and full probing
     # resumes) — cuts k/(k+1) of the probe QP work in the common tail
     # where pruning alone finishes. The gate is decided BEFORE the
-    # wave (enables the fused relax+probe kernel); leaf/integral nodes
+    # wave; leaf/integral nodes
     # met on a gated wave are DEFERRED to the next probing wave, so
     # every incumbent still comes from the probe + certified clamp.
     branching: str = "pseudocost"   # "pseudocost" (reliability-style
@@ -239,7 +204,7 @@ class BnbSpec:
     # k>0 → after the root relaxation, ALL 2·nb candidate children
     # (each unfixed binary fixed to 0 and to 1) are solved as ONE
     # batched QP of k iterations, warm-started from the root iterate —
-    # kernel-grain work a CPU solver cannot afford but a TPU wave
+    # batched work a CPU solver cannot afford but a device wave
     # absorbs (~2 waves of extra work at nb=60). The certified child
     # bounds then (a) initialize the pseudo-cost tables with REAL
     # observed degradations instead of the f·(1−f) bootstrap, (b) fix
@@ -252,8 +217,8 @@ class BnbSpec:
     # residual at few iterations is just "unconverged").
     sb_fix: bool = False         # enable the (b)/(c) arms above. OFF by
     # default: both are only as sound as the certificates' ARITHMETIC —
-    # on-chip (6-pass bf16 composition) the same program that wins on
-    # CPU produced a 3.7%-worse incumbent (63.26 vs 61.0, measured),
+    # on the earlier accelerator's emulated fp32 the same program that
+    # wins on CPU produced a 3.7%-worse incumbent (63.26 vs 61.0),
     # consistent with a borderline certificate fixing away the optimal
     # subtree. Pseudo-cost seeding (a) is search-order-only and always
     # safe. Turn this on for CPU/fp64-grade runs or after validating
@@ -485,7 +450,7 @@ def _bnb_loop(backend, f, h, spec: BnbSpec,
     node_bound_root = getattr(backend, "node_bound", None)
     if spec.sb_iters > 0 and node_bound_root is not None:
         # -- batched root strong branching (BnbSpec.sb_iters) ------------
-        # All 2·nb candidate children as ONE kernel-grain batch: real
+        # All 2·nb candidate children as ONE batched solve: real
         # pseudo-cost initialization, certificate-backed root fixing,
         # and the max_j min(child bounds) root-bound lift. Everything
         # below is certified (Falk bounds valid at any iterate; only
@@ -499,36 +464,29 @@ def _bnb_loop(backend, f, h, spec: BnbSpec,
         rb = node_bound_root(r_root, f, h, backend.lb, backend.ub)
         root_bound = jnp.where(jnp.isfinite(rb), rb, -BIG)
         xb0 = jnp.clip(r_root.x[bidx], 0.0, 1.0)
-        # candidate matrix padded to the batch grain (extra rows re-solve
-        # candidate 0; sliced away): rows [0,nb) fix δ_j=0, [nb,2nb) =1
+        # candidate matrix: rows [0,nb) fix δ_j=0, [nb,2nb) =1
         SB = 2 * nb
-        grain = 128 if jax.default_backend() == "tpu" else 8
-        SBW = max(-(-SB // grain) * grain, grain)
-        jrow = jnp.arange(SBW, dtype=jnp.int32) % nb
-        vrow = (jnp.arange(SBW, dtype=jnp.int32) >= nb) & \
-               (jnp.arange(SBW, dtype=jnp.int32) < SB)
+        jrow = jnp.arange(SB, dtype=jnp.int32) % nb
+        vrow = jnp.arange(SB, dtype=jnp.int32) >= nb
         fmc = jax.nn.one_hot(jrow, nb, dtype=bool)
         fvc = jnp.where(fmc & vrow[:, None], 1.0, 0.0).astype(dtype)
         lbc, ubc = node_bounds(fmc, fvc)
-        fc, hc = backend.broadcast_data(f, h, SBW)
-        warmc = (jnp.broadcast_to(r_root.x, (SBW,) + r_root.x.shape),
-                 jnp.broadcast_to(r_root.z, (SBW,) + r_root.z.shape),
-                 jnp.broadcast_to(r_root.y, (SBW,) + r_root.y.shape))
-        # candidate solves go through the cert-grade path when the
-        # backend has one (XLA, dd-capable certs — see solve_cert):
-        # the (b)/(c) arms below fix variables and lift bounds off
-        # these certificates, and the in-kernel fp32 cert sums were
-        # the round-4 chip failure.
-        solve_c = getattr(backend, "solve_cert", backend.solve)
-        rcand = solve_c(fc, hc, lbc, ubc, spec.sb_iters, warm=warmc)
+        fc, hc = backend.broadcast_data(f, h, SB)
+        warmc = (jnp.broadcast_to(r_root.x, (SB,) + r_root.x.shape),
+                 jnp.broadcast_to(r_root.z, (SB,) + r_root.z.shape),
+                 jnp.broadcast_to(r_root.y, (SB,) + r_root.y.shape))
+        # the (b)/(c) arms below fix variables and lift bounds off these
+        # certificates: they are as sound as the spec's cert arithmetic
+        # (BoxQP.dd_cert)
+        rcand = backend.solve(fc, hc, lbc, ubc, spec.sb_iters, warm=warmc)
         certc = node_bound_root(rcand, fc, hc, lbc, ubc)
         certc = jnp.where(jnp.isfinite(certc),
                           jnp.maximum(certc, root_bound), root_bound)
         infc = rcand.infeas_cert      # dual certificate ONLY (a large
         # residual at sb_iters is just "unconverged", never a fixing)
         certc = jnp.where(infc, BIG, certc)
-        cert0, cert1 = certc[:nb], certc[nb:SB]
-        inf0, inf1 = infc[:nb], infc[nb:SB]
+        cert0, cert1 = certc[:nb], certc[nb:]
+        inf0, inf1 = infc[:nb], infc[nb:]
         # (a) pseudo-cost seeding with real per-unit degradations;
         # infeasible children count as the largest finite gain observed
         gain0 = jnp.maximum(jnp.where(inf0, 0.0, cert0) - root_bound, 0.0)
@@ -622,21 +580,20 @@ def _bnb_loop(backend, f, h, spec: BnbSpec,
         fv = s.fix_val[sel]
         parent_bound = s.bound[sel]
 
-        # -- 2. batched relaxations + gated fused probe -------------------
+        # -- 2. batched relaxations + gated dive probe --------------------
         lb, ub = node_bounds(fm, fv)
         warm = ((s.x_pool[sel], s.z_pool[sel], s.y_pool[sel])
                 if spec.warm_start else None)
         node_bound = getattr(backend, "node_bound", None)
         node_cert = (getattr(backend, "node_cert", None)
                      if spec.presolve_fix and nb > 0 else None)
-        solve_wave = getattr(backend, "solve_wave", None)
         piters = spec.probe_iters or spec.qp_iters
         acc_tol = spec.inc_tol or spec.feas_tol
 
         # probe gate, decided BEFORE the wave (round-3): the round-2
         # gate also probed whenever the selection held integral/leaf
         # nodes — but that reads the relaxation, serializing relax →
-        # decision → probe and blocking the fused relax+probe kernel.
+        # decision → probe.
         # Leaves no longer need it: integral/leaf relaxations become
         # incumbents directly (harvest below) and unresolved leaves are
         # DEFERRED to the next probing wave instead of pruned.
@@ -648,25 +605,20 @@ def _bnb_loop(backend, f, h, spec: BnbSpec,
                          | (s.probe_stale < spec.probe_patience))
 
         def wave_probe(_):
-            if solve_wave is not None:
-                relax, probe, lb_p, ub_p = solve_wave(
-                    fb, hb, lb, ub, spec.qp_iters, piters, warm=warm)
-            else:
-                relax = backend.solve(fb, hb, lb, ub, spec.qp_iters,
-                                      warm=warm)
-                xb = relax.x[:, bidx]
-                pv = jnp.where(fm, fv, jnp.round(jnp.clip(xb, 0.0, 1.0)))
-                lb_p, ub_p = node_bounds(jnp.ones_like(fm), pv)
-                probe = backend.solve_probe(
-                    fb, hb, lb_p, ub_p, piters,
-                    warm=(relax.x, relax.z, relax.y))
+            relax = backend.solve(fb, hb, lb, ub, spec.qp_iters, warm=warm)
+            xb = relax.x[:, bidx]
+            pv = jnp.where(fm, fv, jnp.round(jnp.clip(xb, 0.0, 1.0)))
+            lb_p, ub_p = node_bounds(jnp.ones_like(fm), pv)
+            probe = backend.solve_probe(
+                fb, hb, lb_p, ub_p, piters,
+                warm=(relax.x, relax.z, relax.y))
             ok = (probe.r_prim_rel < acc_tol) & valid
             pobj = probe.obj
             if node_bound is not None:
                 # Clamp the candidate with the leaf's certified dual
                 # bound: a feas_tol-feasible but unconverged probe
                 # iterate can report an objective BELOW the true leaf
-                # optimum (measured on-chip: −42.93 vs −42.69, 0.57%),
+                # optimum (measured: −42.93 vs −42.69, 0.57%),
                 # corrupting both the reported incumbent and pruning.
                 pcert = node_bound(probe, fb, hb, lb_p, ub_p)
                 pobj = jnp.where(jnp.isfinite(pcert),
@@ -983,13 +935,9 @@ def _bnb_loop(backend, f, h, spec: BnbSpec,
 
 
 def _jitted_bnb(admm, qp, admm_probe, spec: BnbSpec):
-    """Jitted wave loop CLOSING OVER the prepared (admm, qp, admm_probe):
-    closing over keeps their arrays concrete inside the trace, which is
-    what lets CondensedBackend.solve dispatch wave batches to the Pallas
-    kernel (ops/pallas_admm.py admm_solve_auto refuses traced specs — a
-    jit ARGUMENT is abstracted to a Tracer even when the caller passed a
-    concrete array, so the round-2 @jit-with-admm-as-arg form silently
-    locked every B&B wave out of the kernel path).
+    """Jitted wave loop CLOSING OVER the prepared (admm, qp, admm_probe),
+    so repeated solves of one prepared problem reuse one compiled
+    program.
 
     Memoized ON the admm spec (utils/prepcache.py — replaces the round-2
     module-level id()-keyed cache): the runner dies with the spec, and
@@ -1027,10 +975,9 @@ def solve_miqp_bnb(admm: BoxQP, qp: DeviceQP, f, h,
 
     When ``admm`` is a prepared (concrete) BoxQP — eager calls, or calls
     from inside a jit that CLOSES OVER it (loop/closed_loop.py,
-    control/mpc.py) — the solve runs as a cached jitted closure and wave
-    batches whose size tiles the 128-lane grain ride the Pallas kernel
-    on TPU. When ``admm`` arrives as a traced jit argument the loop is
-    inlined into the caller's trace (XLA wave path)."""
+    control/mpc.py) — the solve runs as a cached jitted closure. When
+    ``admm`` arrives as a traced jit argument the loop is inlined into
+    the caller's trace."""
     if isinstance(admm.P, jax.core.Tracer):
         return _bnb_loop(CondensedBackend(admm, qp, admm_probe), f, h,
                          spec, init_incumbent=init_incumbent,

@@ -8,16 +8,15 @@ structural taxes of the vmapped form:
 1. **Lock-step waves.** Under ``vmap`` every instance runs the
    while_loop until the SLOWEST instance terminates; an instance that
    closes its tree in 3 waves keeps burning full wave solves for 30.
-2. **Lane-starved solves.** Each wave relaxes only ``wave_size`` (8–32)
-   nodes per instance: a (B, W, n) batch of tiny matmuls that cannot
-   tile the Pallas kernel's 128-lane batch grain (ops/pallas_admm.py),
-   so the hot loop is locked out of the fast path.
+2. **Starved solves.** Each wave relaxes only ``wave_size`` (8–32)
+   nodes per instance: a (B, W, n) batch of tiny matmuls, each instance
+   its own small problem inside one vmapped program.
 
 The pooled driver removes both: all instances' open nodes live in one
 (P,)-slot pool tagged with an instance id, each wave selects the
 globally best ``wave_size`` nodes (instances that finished simply stop
 contributing), and the wave's relaxation+probe batch is a single
-(W, n) solve with W sized to the kernel grain (512–2048). Total wave
+(W, n) solve with W in the hundreds to thousands. Total wave
 count ≈ total-tree-nodes / W instead of B × max-per-instance-waves.
 
 Per-instance state (incumbent, best open bound) is kept as (B,) vectors
@@ -26,13 +25,10 @@ pooling changes ONLY the schedule, not the search semantics. Pseudo-cost
 statistics are shared across instances (same matrices, same branching
 structure — cross-instance learning is a feature).
 
-**Packed pool layout (round 4).** Round-3 wave anatomy (docs/
-PERFORMANCE.md): at W=1024 the pure solve work is ≈0.75 ms but a real
-wave costs 1.6–2.0 ms — the difference is ~15 small pool-machinery ops
-(gathers/scatters/top_k) whose cost is DISPATCH, not bandwidth
-(in-loop, each costs 0.05–0.07 ms regardless of operand size; round-3
-also measured that shrinking pool rows 32B→8B bought +22%, i.e. the
-data-structure footprint is what matters). So the pool stores its
+**Packed pool layout.** A wave's time beyond its solves is ~15 small
+pool-machinery ops (gathers/scatters/top_k) whose cost is per op, not
+per byte (measured on the earlier accelerator; PERF.md), so the pool
+stores its
 per-node state PACKED, trading tiny elementwise pack/unpack (fused by
 XLA) for fewer gather/scatter kernels per wave:
 
@@ -82,11 +78,7 @@ _BOUND, _DEPTH, _BVAR, _BDIR, _BFRAC, _INST, _ACTIVE, _PAD = range(8)
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass
 class KernelCondensedBackend(CondensedBackend):
-    """Back-compat alias: CondensedBackend itself now dispatches every
-    solve through ``admm_solve_auto`` (the Pallas kernel when the wave
-    batch tiles the 128-lane grain on TPU and the prepared spec is
-    concrete — see solver/bnb.py ``solve_miqp_bnb``; the XLA path
-    otherwise, so CPU tests run the identical search through XLA)."""
+    """Back-compat alias of CondensedBackend."""
 
 
 @jax.tree_util.register_dataclass
@@ -138,9 +130,8 @@ def _pooled_loop(backend, f, h, spec: BnbSpec, pool_slots: int,
     frame). Member relaxation values are averaged for fractionality /
     probe rounding (non-anticipativity rows push them equal; a per-
     member rounding can split a 0.5 tie across members and hand the
-    probe a contradictory assignment). With a branch_map the wave runs
-    the UNFUSED relax→probe composition (the fused kernel's in-kernel
-    rounding is per-coordinate) and node presolve fixing is disabled
+    probe a contradictory assignment). With a branch_map node presolve
+    fixing is disabled
     (per-coordinate flip deltas do not group-certify); the certified
     Falk node bound is unchanged."""
     B, n = f.shape
@@ -271,8 +262,8 @@ def _pooled_loop(backend, f, h, spec: BnbSpec, pool_slots: int,
         fm = enc >= 0.0
         fv = jnp.maximum(enc, 0.0)
 
-        # -- 2. batched relaxations + gated fused probe (ONE (W, n)
-        # kernel program per probing wave — see solver/bnb.py) ------------
+        # -- 2. batched relaxations + gated dive probe (ONE (W, n) batch
+        # each — see solver/bnb.py) ---------------------------------------
         fb = f[ni]
         hb = h[ni]
         lb, ub = node_bounds(enc)
@@ -281,7 +272,6 @@ def _pooled_loop(backend, f, h, spec: BnbSpec, pool_slots: int,
             warm = (w_sel[:, :n], w_sel[:, n:n + mt], w_sel[:, n + mt:])
         else:
             warm = None
-        solve_wave = getattr(backend, "solve_wave", None)
         piters = spec.probe_iters or spec.qp_iters
         acc_tol = spec.inc_tol or spec.feas_tol
 
@@ -296,22 +286,17 @@ def _pooled_loop(backend, f, h, spec: BnbSpec, pool_slots: int,
                          | (s.probe_stale < spec.probe_patience))
 
         def wave_probe(_):
-            if solve_wave is not None and rep_of is None:
-                relax, probe, lb_p, ub_p = solve_wave(
-                    fb, hb, lb, ub, spec.qp_iters, piters, warm=warm)
-            else:
-                relax = backend.solve(fb, hb, lb, ub, spec.qp_iters,
-                                      warm=warm)
-                xb = relax.x[:, bidx]
-                if rep_of is not None:
-                    # group-mean before rounding: one dive value per
-                    # information set (see _pooled_loop docstring)
-                    xb = jnp.matmul(xb, Mavg, precision="highest")
-                pv = jnp.where(fm, fv, jnp.round(jnp.clip(xb, 0.0, 1.0)))
-                lb_p, ub_p = node_bounds(pv)
-                probe = backend.solve_probe(
-                    fb, hb, lb_p, ub_p, piters,
-                    warm=(relax.x, relax.z, relax.y))
+            relax = backend.solve(fb, hb, lb, ub, spec.qp_iters, warm=warm)
+            xb = relax.x[:, bidx]
+            if rep_of is not None:
+                # group-mean before rounding: one dive value per
+                # information set (see _pooled_loop docstring)
+                xb = jnp.matmul(xb, Mavg, precision="highest")
+            pv = jnp.where(fm, fv, jnp.round(jnp.clip(xb, 0.0, 1.0)))
+            lb_p, ub_p = node_bounds(pv)
+            probe = backend.solve_probe(
+                fb, hb, lb_p, ub_p, piters,
+                warm=(relax.x, relax.z, relax.y))
             ok = (probe.r_prim_rel < acc_tol) & valid
             # certified-clamp: see solver/bnb.py — a feas_tol iterate's
             # objective can sit BELOW the true leaf optimum.
@@ -559,9 +544,7 @@ def _jitted_pooled(admm, qp, admm_probe, spec: BnbSpec, P: int,
                    branch_map=None):
     """Jitted pooled loop closing over concrete problem data — same
     rationale and memoization policy as solver/bnb.py ``_jitted_bnb``
-    (a jit ARGUMENT is abstracted to a Tracer, which locks
-    admm_solve_auto out of the kernel path; the runner is cached ON the
-    admm spec via utils/prepcache.py)."""
+    (the runner is cached ON the admm spec via utils/prepcache.py)."""
     from pyhybridcontrol_tpu.utils.prepcache import cached_on
 
     def build():
@@ -591,11 +574,8 @@ def solve_miqp_bnb_pooled(admm: BoxQP, qp: DeviceQP, f, h,
     """Solve B MIQPs sharing one condensed structure in a single pooled
     B&B. f (B, n), h (B, m_ineq) from a vmapped ``qp.assemble``.
 
-    ``pool_slots``: total pool size (0 → 32·B, min 4096-aligned to the
-    wave). Set ``spec.wave_size`` to a multiple of 128 to engage the
-    Pallas kernel for every wave's relaxation + probe batch on TPU
-    (requires a concrete — closed-over or eager — ``admm``; a traced
-    jit-argument spec inlines the loop on the XLA wave path).
+    ``pool_slots``: total pool size (0 → 32·B). A traced jit-argument
+    ``admm`` inlines the loop into the caller's trace.
 
     ``branch_map``: optional (nb,) information-set group ids for
     scenario-TREE instances — one branching decision then fixes every

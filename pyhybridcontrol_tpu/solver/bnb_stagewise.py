@@ -6,7 +6,7 @@ backend protocol, with node relaxations solved by the block-tridiagonal
 Use when N is large enough that the condensed H (O(N²·nv²)) or its
 KKT inverse stops fitting / paying off — the stagewise path is
 O(N·b²) memory and per-iteration FLOPs, so MIQPs with horizons in the
-hundreds stay on-chip.
+hundreds stay on the device.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Device-side exhaustive MIQP enumeration (SURVEY.md §7 "minimum
 end-to-end slice"): solve ALL 2^nb binary assignments as one batched ADMM
-call and reduce with argmin. For small binary counts this beats B&B on TPU
-outright — 1024 relaxations is one wave of MXU matmuls — and it doubles
+call and reduce with argmin. For small binary counts this beats B&B
+outright — 1024 relaxations is one batched solve — and it doubles
 as the on-device parity reference for the B&B engine.
 """
 

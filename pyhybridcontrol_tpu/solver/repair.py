@@ -20,7 +20,7 @@ feasible candidate advances the state. By construction the result
 satisfies every stage constraint; its condensed objective is evaluated
 exactly and offered as an incumbent.
 
-TPU shape: one `lax.scan` over k carrying x_k, with the 2^{nb_step}
+Device shape: one `lax.scan` over k carrying x_k, with the 2^{nb_step}
 candidates solved as one batched ADMM call per step (all steps share one
 tiny KKT inverse). Cost ≈ N · 2^{nb_step} micro-QPs — noise next to the
 wave relaxations. Not valid under move blocking (the repaired sequence

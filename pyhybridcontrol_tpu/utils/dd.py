@@ -2,13 +2,13 @@
 certificate reductions (VERDICT r4 item 2; SURVEY.md §7 "QP accuracy in
 bf16/fp32").
 
-TPUs have no native fp64. The B&B engine's *certificates* — the Falk
+The device solvers run in fp32. The B&B engine's *certificates* — the Falk
 dual bound, the primal-infeasibility support/gap sums, and the strong-
 branching candidate scores built from them — are short reductions whose
 terms cancel (tangent terms of opposite sign at 1e2 scale certifying
 bounds at 1e-3 scale), and plain fp32 summation was measured shipping
-3.7%-worse incumbents on chip when those certs drove fixing decisions
-(docs/PERFORMANCE.md round-4 SB negative result). This module provides
+3.7%-worse incumbents when those certs drove fixing decisions
+(PERF.md, strong-branching finding). This module provides
 error-free-transformation building blocks and a compensated dot/sum
 whose result tracks fp64 to ~1ulp-of-fp64-in-fp32-pairs, while the
 surrounding matmuls stay fp32 ``precision="highest"`` (CLAUDE.md).
@@ -103,7 +103,7 @@ def dd_dot(a, b, axis=-1):
     TwoProduct each term, tree-sum the (value, error) pairs. Result is
     as if computed in ~2x the working precision then rounded once —
     fp64-grade for fp32 inputs. Cost: ~10 elementwise ops per term
-    (VPU work, negligible next to the MXU matmuls it sits beside)."""
+    (elementwise work, negligible next to the matmuls it sits beside)."""
     p, e = two_prod(a, b)
     hi, lo = _dd_sum_pair(p, e, axis=axis)
     return hi + lo

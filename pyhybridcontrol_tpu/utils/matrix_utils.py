@@ -5,7 +5,7 @@ coercion).
 All functions are namespace-generic: they accept ``xp`` (numpy or
 jax.numpy). Condensation runs them with numpy float64 on the host at build
 time for accuracy; jnp for traced/differentiable paths. No scipy.sparse —
-on TPU, dense MXU-tiled blocks beat sparse formats at MPC scale (N ≤ ~64),
+on the device, dense blocks beat sparse formats at MPC scale (N ≤ ~64),
 and XLA has no sparse kernels worth using here.
 """
 

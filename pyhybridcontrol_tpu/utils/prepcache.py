@@ -1,12 +1,9 @@
 """Per-object derived-data cache for prepared problem specs.
 
-Round-2 shipped THREE module-level ``id()``-keyed caches
-(``ops/pallas_admm._PQ_CACHE``, ``solver/bnb._JIT_CACHE``,
-``solver/bnb_pooled._JIT_CACHE``). Each was a place the same two bugs
-could recur: (a) ``id()`` reuse after garbage collection aliasing two
-different prepared problems, and (b) unbounded growth — entries held
-strong references forever. This helper replaces all three with ONE
-policy: derived data (padded kernel operands, jitted wave-loop runners)
+Module-level ``id()``-keyed caches invite two bugs: (a) ``id()`` reuse
+after garbage collection aliasing two different prepared problems, and
+(b) unbounded growth — entries hold strong references forever. This
+helper is ONE policy instead: derived data (jitted wave-loop runners)
 lives in a dict ON the prepared-spec object itself, so it is garbage-
 collected with the spec, never aliases across objects, and module state
 stays immutable.

@@ -13,10 +13,10 @@ import numpy as np
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/tpu_hybrid_mpc_trace"):
+def trace(log_dir: str = "profile_trace"):
     """Capture a Perfetto/profiler trace of the enclosed device work:
 
-        with profiling.trace("/tmp/trace"):
+        with profiling.trace("out/trace"):
             solve_miqp_bnb(...)  # view via xprof/tensorboard
     """
     jax.profiler.start_trace(log_dir)

@@ -5,7 +5,7 @@ Functional replacement for the reference's core data structure (the
 weight set, and parameter struct in this framework is carried in a
 StructDict. Unlike the reference's, this one is a *pytree*, so whole
 bundles flow through ``jit`` / ``vmap`` / ``grad`` / ``shard_map``
-transparently — the TPU-native analogue of "attribute dict of numpy
+transparently — the device-native analogue of "attribute dict of numpy
 matrices".
 
 Keys are sorted for flattening so tree structure is deterministic and two

@@ -14,6 +14,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 _repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if _repo not in sys.path:
@@ -23,8 +24,9 @@ PORT = int(os.environ.get("FAULT_PORT", "12387"))
 LOCAL_DEVICES = 2
 T_TOTAL = 5
 FAULT_STEP = 2
-CKPT = "/tmp/tpu_hybrid_mpc_fault_ck"
-REF = "/tmp/tpu_hybrid_mpc_fault_ref.json"
+CKPT = os.path.join(tempfile.gettempdir(), "hybrid_mpc_fault_ck")
+REF = os.path.join(tempfile.gettempdir(), "hybrid_mpc_fault_ref.json")
+TRAJ = os.path.join(tempfile.gettempdir(), "fault_traj_dist.json")
 
 
 def _build():
@@ -87,7 +89,7 @@ def worker(process_id, num_processes, fault: bool, resume: bool) -> int:
             os._exit(17)
 
     if process_id == 0:
-        with open(f"/tmp/fault_traj_{'dist'}.json", "w") as fp:
+        with open(TRAJ, "w") as fp:
             json.dump({"final_x": traj[-1]}, fp)
         print(f"[proc 0] final x = {traj[-1]}", flush=True)
     jax.distributed.shutdown()
@@ -151,7 +153,7 @@ def _spawn(num_processes, fault, resume, timeout=240, port=None):
 
 
 def launcher() -> int:
-    for f in (CKPT, CKPT + "-proc000", REF, "/tmp/fault_traj_dist.json"):
+    for f in (CKPT, CKPT + "-proc000", REF, TRAJ):
         if os.path.exists(f):
             os.unlink(f)
     # reference run (in-process)
@@ -167,7 +169,7 @@ def launcher() -> int:
     rcs = _spawn(2, fault=False, resume=True, timeout=240, port=12411)
     print("phase-2 exit codes:", rcs, flush=True)
     assert all(rc == 0 for rc in rcs), rcs
-    dist = json.load(open("/tmp/fault_traj_dist.json"))["final_x"]
+    dist = json.load(open(TRAJ))["final_x"]
     ref = json.load(open(REF))["final_x"]
     ok = all(abs(a - b) <= 1e-3 for a, b in zip(dist, ref))
     print(f"dist final {dist} vs ref {ref} → "

@@ -342,3 +342,20 @@ def test_dive_slots_matches_enumeration(prob):
         assert not bool(res.overflow)
         assert abs(float(res.obj) - float(obj_enum)) <= 1e-3 * max(
             1.0, abs(float(obj_enum)))
+
+
+def test_profiling_utils():
+    from pyhybridcontrol_tpu.utils.profiling import bnb_stats, wall_timer
+
+    model = switched_double_integrator()
+    c = CondensedMpc(model, 6, default_weights())
+    qp, admm = c.device_qp(), prepare_admm_mpc(c)
+    f, h = qp.assemble(jnp.asarray([2.0, 0.0]))
+    with wall_timer("solve", sync=None) as t:
+        r = solve_miqp_bnb(admm, qp, f, h,
+                           BnbSpec(capacity=64, wave_size=8, qp_iters=200))
+        r.obj.block_until_ready()
+    assert t["seconds"] > 0
+    stats = bnb_stats(r)
+    assert stats["found"] and stats["nodes_solved"] > 0
+    assert np.isfinite(stats["obj"])

@@ -261,7 +261,7 @@ def test_bench_crash_isolation(tmp_path):
     assert out.returncode == 0, out.stderr[-2000:]
     line = json.loads(out.stdout.strip().splitlines()[-1])
     assert line["unit"] == "solves/s" and line["value"] > 0
-    d = json.load(open(tmp_path / "BENCH_DETAILS_cpu_smoke.json"))
+    d = json.load(open(tmp_path / "BENCH_DETAILS.json"))
     assert "injected test error" in d["config1_double_integrator"]["error"]
     assert d["primary_qp_solves_per_s"] > 0
 

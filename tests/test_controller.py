@@ -240,3 +240,23 @@ def test_feedback_reports_certified_gap():
     batch = ctrl.feedback_batch(jnp.asarray([[2.0, 0.0], [1.0, -0.5]]))
     assert batch.gap.shape == (2,)
     assert bool(jnp.all(batch.gap >= 0.0))
+
+
+def test_feedback_then_feedback_batch_shared_controller():
+    """MpcController.feedback (one jitted program) followed by
+    feedback_batch (a second program, pooled engine) on the SAME
+    controller: both close over one prepared admm spec and agree."""
+    from pyhybridcontrol_tpu.solver.bnb import BnbSpec
+
+    model = switched_double_integrator()
+    ctl = MpcController(model, 6, default_weights(),
+                        bnb_spec=BnbSpec(capacity=256, wave_size=128,
+                                         max_waves=12, qp_iters=60))
+    r1 = ctl.feedback(jnp.asarray([2.0, 0.0]))
+    assert bool(r1.found)
+    x0s = jnp.asarray([[2.0, 0.0], [-1.0, 0.5]], jnp.float32)
+    rb = ctl.feedback_batch(x0s, engine="pooled", pooled_wave=128,
+                            pool_slots=512)
+    assert bool(np.asarray(rb.found)[0])
+    np.testing.assert_allclose(float(np.asarray(rb.obj)[0]),
+                               float(r1.obj), rtol=1e-3, atol=1e-3)

@@ -92,7 +92,7 @@ def test_split_cuts_raise_root_bound_small():
     """On the tight trust box the N=3 root relaxation bound strictly
     increases (measured +0.27 absolute; the N=20 bench instance's
     5.5% gap does NOT close this way — documented negative result,
-    docs/PERFORMANCE.md)."""
+    PERF.md)."""
     _, _, diag = _gen(3, n_per_round=3, rounds=2, n_tilts=1)
     assert diag.root_bound_after > diag.root_bound_before + 0.05
 

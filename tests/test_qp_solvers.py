@@ -202,6 +202,66 @@ def test_infeasibility_certificate(rng):
     assert not bool(res2.infeas_cert)
 
 
+def test_infeasibility_certificate_batched(rng):
+    """In a batch, the certificate fires on the one contradictory
+    instance (x0 ≤ 1 ∧ x0 ≥ 2) and on no feasible one."""
+    n, B = 8, 128
+    G = np.vstack([np.eye(n)[:1], -np.eye(n)[:1]])
+    spec = prepare_admm(G, np.eye(n))
+    fs = jnp.asarray(rng.normal(size=(B, n)).astype(np.float32))
+    hs = jnp.broadcast_to(jnp.asarray([1.0, 2.0], jnp.float32), (B, 2))
+    hs = hs.at[0].set(jnp.asarray([1.0, -2.0]))
+    res = admm_solve(spec, fs, hs, jnp.full((B, n), -10.0),
+                     jnp.full((B, n), 10.0), iters=400)
+    cert = np.asarray(res.infeas_cert)
+    assert cert[0] and not cert[1:].any()
+
+
+def test_admm_warm_start_continues_exactly(rng):
+    """60 iterations warm-started from a 60-iteration result equal 120
+    cold iterations: (x, z, y) is the whole iteration state."""
+    c = CondensedMpc(switched_double_integrator(), 6, default_weights())
+    qp, spec = c.device_qp(), prepare_admm_mpc(c)
+    B = 32
+    x0s = jnp.asarray(rng.normal(size=(B, 2)).astype(np.float32))
+    fs, hs = jax.vmap(qp.assemble)(x0s)
+    lb = jnp.broadcast_to(qp.lb, (B, qp.n))
+    ub = jnp.broadcast_to(qp.ub, (B, qp.n))
+    cold = admm_solve(spec, fs, hs, lb, ub, iters=120)
+    r1 = admm_solve(spec, fs, hs, lb, ub, iters=60)
+    warm = admm_solve(spec, fs, hs, lb, ub, iters=60,
+                      warm=(r1.x, r1.z, r1.y))
+    np.testing.assert_allclose(np.asarray(warm.obj), np.asarray(cold.obj),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(warm.x), np.asarray(cold.x),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_shared_spec_two_jitted_programs(rng):
+    """Two different @jax.jit programs sharing ONE prepared BoxQP, each
+    closing over it, both run and agree (a prepared spec holds only
+    concrete arrays, so no trace-local constant can leak between
+    programs)."""
+    n, m = 6, 4
+    L = rng.normal(size=(n, n))
+    spec = prepare_admm(rng.normal(size=(m, n)), L @ L.T + n * np.eye(n))
+    B = 128
+    q = jnp.asarray(rng.normal(size=(B, n)).astype(np.float32))
+    h = jnp.ones((B, m), jnp.float32)
+    lb, ub = -jnp.ones((B, n)), jnp.ones((B, n))
+
+    @jax.jit
+    def prog1(q):
+        return admm_solve(spec, q, h, lb, ub, iters=200).obj
+
+    @jax.jit
+    def prog2(q):          # different program (iters) — second trace
+        return admm_solve(spec, q, h, lb, ub, iters=300).obj
+
+    np.testing.assert_allclose(np.asarray(prog1(q)), np.asarray(prog2(q)),
+                               rtol=1e-4, atol=1e-4)
+
+
 def test_bnb_random_structure_miqp_fuzz(rng):
     """Random-structure MIQPs (not from any model family) vs the fp64
     oracle: PSD H, random inequality rows, random binary subset with a
@@ -265,8 +325,8 @@ def test_dd_dot_accuracy():
 def test_falk_cert_dd_valid_and_consistent(miqp):
     """dd_cert=True Falk bounds stay VALID (≤ the fp64 relaxation
     optimum) and agree with the fp32 evaluation to the fp32 rounding
-    envelope on a well-scaled problem (the dd payoff is on chip, where
-    the sums feed fixing decisions — VERDICT r4 item 2)."""
+    envelope on a well-scaled problem (the dd payoff is where the sums
+    feed fixing decisions)."""
     from pyhybridcontrol_tpu.ops.admm import admm_dual_bound
 
     model, N, c, qp, spec = miqp
@@ -289,8 +349,7 @@ def test_falk_cert_dd_valid_and_consistent(miqp):
 def test_bnb_sb_fix_dd_matches_enumeration(miqp):
     """Root strong branching with the certificate arms ON (sb_fix=True)
     over dd_cert preps returns the enumeration optimum — the end-to-end
-    CPU check of the chip-trustworthy-certificate path (VERDICT r4
-    item 2; candidate solves ride CondensedBackend.solve_cert)."""
+    CPU check of the compensated-certificate path."""
     import dataclasses
 
     model, N, c, qp, spec = miqp
